@@ -1,4 +1,4 @@
-"""mjrl_tpu — a TPU-native on-policy RL framework.
+"""mjrl_tpu — an on-device on-policy RL framework in JAX.
 
 A from-scratch rebuild of the capabilities of ``bennevans/mjrl`` (NPG / TRPO /
 PPO with conjugate-gradient Fisher-vector products and KL line search,
@@ -22,14 +22,12 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# Physics correctness requires f32 contractions: with the TPU default
-# ("bfloat16") the engine's small einsums (rotations, inertia products) run
-# at ~3 significant digits whenever XLA routes them to the MXU — under jit
-# they usually fuse into f32 VPU ops, but EAGER execution hits the MXU
-# op-by-op and measurably corrupts rollouts (a trained hopper's episode
-# length drops ~10x when evaluated eagerly). f32 precision costs nothing
-# at this framework's matmul sizes. Re-override after import if you know
-# what you're doing.
+# Physics correctness requires full f32 contractions. On NVIDIA GPUs from
+# Ampere on, XLA's default lets f32 matmuls run in TF32 (about 3
+# significant digits), which corrupts the engine's small einsums
+# (rotations, inertia products) and the SoA/engine parity. "float32" keeps
+# TF32 off for the whole process; chip_smoke.py checks the setting.
+# Re-override after import if you know what you're doing.
 _jax.config.update("jax_default_matmul_precision", "float32")
 
 from mjrl_tpu.types import EnvSpec, TrajectoryBatch  # noqa: F401

@@ -6,7 +6,7 @@ Capability twin of the reference's ``BatchREINFORCE``
 new policies, and the ``train_step`` orchestration
 sample -> returns -> advantages -> update -> baseline-fit.
 
-TPU-first differences from the reference:
+Differences from the reference:
 - ``train_step`` is ONE jitted program: sampling, GAE, the update and the
   baseline fit all fuse; the host loop only feeds PRNG keys and reads
   metrics (the reference crosses a process pool and torch autograd per

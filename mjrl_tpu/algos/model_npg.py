@@ -3,7 +3,7 @@
 Capability twin of the reference's model_accel subsystem (reference:
 mjrl/algos/model_accel/ — ensemble MLP dynamics models fit on collected
 paths + NPG updated on rollouts through the learned models, cutting real
-env samples per unit of policy improvement). TPU-first shape:
+env samples per unit of policy improvement). Shape of the program:
 
 - one fused jitted train_step does: real rollout -> ensemble fit (vmapped
   members) -> imagined rollouts through a ``ModelEnv`` (the SAME

@@ -5,7 +5,7 @@ Capability twin of the reference's NPG (reference: mjrl/algos/npg_cg.py
 Fisher-vector products, and the step is scaled to a fixed KL budget
 ``alpha = sqrt(2 * delta / g^T F^-1 g)`` (normalized step size).
 
-TPU-first differences:
+Differences from the reference:
 - The FVP is forward-over-reverse: ``jvp(grad(mean_kl))`` (one forward-mode
   pass over the gradient instead of the reference's double-backward), which
   XLA compiles into the same fused program as the surrounding CG iteration.

@@ -5,10 +5,10 @@ ctor ``clip_coef=0.2, epochs=10, mb_size=64, learn_rate=3e-4`` with torch
 Adam): maximize ``mean(min(LR * adv, clip(LR, 1±eps) * adv))`` over shuffled
 minibatches of the on-policy batch.
 
-TPU-first: the epochs x minibatches double loop is a nested ``lax.scan`` over
-a precomputed permutation tensor, so the whole multi-epoch optimization is
-one XLA program — minibatch gradients are small dense matmul backprops that
-tile straight onto the MXU. The behavior distribution (``batch.mean/log_std``
+The epochs x minibatches double loop is a nested ``lax.scan`` over a
+precomputed permutation tensor, so the whole multi-epoch optimization is
+one XLA program of small dense matmul backprops. The behavior distribution
+(``batch.mean/log_std``
 recorded at sampling time) provides the ratio denominator, so minibatch
 normalization needs no old-policy re-evaluation.
 

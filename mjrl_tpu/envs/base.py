@@ -2,7 +2,7 @@
 
 The reference wraps stateful gym/mujoco_py envs behind ``GymEnv`` with
 ``reset()/step(a)`` mutating a live simulator (reference:
-mjrl/utils/gym_env.py). On TPU an env must instead be a pair of pure
+mjrl/utils/gym_env.py). On device an env must instead be a pair of pure
 functions over an explicit state pytree so that thousands of instances run in
 lockstep under ``vmap`` inside a time-major ``lax.scan``:
 

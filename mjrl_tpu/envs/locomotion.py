@@ -1,9 +1,10 @@
 """Gym-style locomotion envs on the first-party physics engine.
 
 The capability ladder of BASELINE.json (hopper -> walker2d/half_cheetah ->
-ant; swimmer for the fluid model): each env compiles the INSTALLED gymnasium
-MJCF asset through our loader (tests verify the compiled model matches CPU
-MuJoCo bit-for-bit on masses/kinematics/smooth dynamics), and reproduces the
+ant; swimmer for the fluid model): each env compiles Gymnasium's MJCF asset,
+vendored under ``envs/assets/`` with its MIT licence, through our loader
+(tests verify the compiled model matches CPU MuJoCo bit-for-bit on
+masses/kinematics/smooth dynamics), and reproduces the
 gymnasium v4 task conventions — observation layout, reward terms, healthy
 ranges/termination, reset noise, frame skip — which are the same tasks the
 reference trains on through old gym (reference: mjrl/utils/gym_env.py).
@@ -28,12 +29,12 @@ from mjrl_tpu.physics.mjcf import load_mjcf
 from mjrl_tpu.types import EnvSpec
 
 
-def _asset_path(name: str) -> str:
-    import gymnasium
+_ASSETS = os.path.join(os.path.dirname(__file__), "assets")
 
-    return os.path.join(
-        os.path.dirname(gymnasium.__file__), "envs", "mujoco", "assets", name
-    )
+
+def _asset_path(name: str) -> str:
+    """Path of a vendored Gymnasium locomotion MJCF (``envs/assets/``)."""
+    return os.path.join(_ASSETS, name)
 
 
 class LocomotionEnv(Env):
@@ -67,7 +68,7 @@ class LocomotionEnv(Env):
             self.n_substeps = int(n_substeps)
         self.model.n_substeps = self.n_substeps
         # 'newton' = MuJoCo-parity soft-constraint contacts/limits
-        # (physics/csolve.py, engine path); 'penalty' = the TPU fast path
+        # (physics/csolve.py); 'penalty' = spring-damper contacts
         self.model.constraint_solver = constraint_solver
         # Auto-tune penalty contact params to the model's scale: full body
         # weight on one contact compresses ~2mm; spring force saturates at

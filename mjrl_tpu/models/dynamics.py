@@ -3,11 +3,11 @@
 Capability twin of the reference's model_accel dynamics models (reference:
 mjrl/algos/model_accel/nn_dynamics.py — torch MLPs fit to predict the next
 state from (s, a), with input/target normalization, consumed by
-model-accelerated NPG). TPU-first design:
+model-accelerated NPG). Design:
 
 - the K ensemble members are ONE stacked parameter pytree trained under
-  ``jax.vmap`` — K small MLP fits become one batched program whose matmuls
-  tile the MXU together instead of K sequential fits;
+  ``jax.vmap`` — K small MLP fits become one batched program of batched
+  matmuls instead of K sequential fits;
 - members differ by init and by independent minibatch shuffles (bootstrap
   by shuffling, the reference's scheme);
 - the model predicts the normalized DELTA ``s' - s``; normalization stats

@@ -8,7 +8,7 @@ transforms mirror the reference's ``set_transformations`` (used by behavior
 cloning to normalize demos) and are non-trainable.
 
 Matmuls are emitted as single ``(batch, features) @ (features, hidden)``
-contractions so XLA tiles them onto the MXU; the batch axis is whatever
+contractions; the batch axis is whatever
 leading shape the caller provides (e.g. ``num_envs`` inside a scan step).
 """
 

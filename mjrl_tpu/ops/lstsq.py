@@ -3,9 +3,9 @@
 The reference solves its baseline fits with float64
 ``np.linalg.lstsq(F F^T + reg I, F y)`` and retries with a 10x larger ridge
 whenever the solution comes back non-finite (reference:
-mjrl/baselines/linear_baseline.py / quadratic_baseline.py ``fit``). TPUs run
-float32, so the equivalent here is a Cholesky solve on the normal equations
-with one round of iterative refinement, wrapped in the same fixed
+mjrl/baselines/linear_baseline.py / quadratic_baseline.py ``fit``). This
+program runs float32, so the equivalent here is a Cholesky solve on the
+normal equations with one round of iterative refinement, wrapped in the same fixed
 escalating-ridge retry ladder — expressed with ``lax`` control flow so it
 stays inside jit.
 """

@@ -1,15 +1,12 @@
-"""Batched tiny-SPD Cholesky solve, scalarized for the TPU VPU.
+"""Batched tiny-SPD Cholesky solve, unrolled at trace time.
 
 ``jax.scipy.linalg.cho_factor/cho_solve`` on a (B, n, n) batch of tiny
-matrices lowers to sequential column steps over padded (B, 8, 128) tiles —
-for n<=~32 the padding wastes ~98% of every vector op and the triangular
-solves serialize. This implementation unrolls the n^3/3 Cholesky recurrence
-at trace time over the individual matrix entries, each a (B,)-shaped vector:
-XLA fuses the resulting elementwise chains into a handful of full-lane VPU
-kernels with zero padding waste. For the physics engine's per-env mass
-matrices (nv <= ~30, B = thousands of envs) this is the difference between
-the solve dominating a substep and it being ~free (SURVEY.md §7.2 step 9's
-"batched small-matrix Cholesky" hot spot, solved at the XLA level).
+matrices lowers to a library call per batch that XLA cannot fuse with the
+surrounding physics. This implementation unrolls the n^3/3 Cholesky
+recurrence at trace time over the individual matrix entries, each a
+(B,)-shaped vector, so XLA fuses the resulting elementwise chains with their
+neighbours. It serves the physics engine's per-env mass matrices and the
+Newton Hessians (nv <= ~30, B = thousands of envs).
 
 Falls back to ``cho_solve`` for n > MAX_UNROLL where trace size would blow
 up.
@@ -21,10 +18,10 @@ import jax
 import jax.numpy as jnp
 
 MAX_UNROLL = 40
-# crossover measured on TPU v5 (B=1024): the fully scalarized unroll wins for
-# tiny n (short chains, perfect fusion), the column-blocked variant wins once
-# the O(n^3) op count of the scalar form dominates per-op overhead
-SCALAR_MAX_N = 8
+# Largest n that takes the entry-wise unroll. On an H100 at B=1024 it beat
+# the column-blocked variant at n = 14 and 23 and tied at n = 8 (PERF.md);
+# the blocked variant keeps the unmeasured 24..MAX_UNROLL range.
+SCALAR_MAX_N = 23
 
 
 def chol_solve_small(A: jax.Array, b: jax.Array) -> jax.Array:
@@ -33,9 +30,8 @@ def chol_solve_small(A: jax.Array, b: jax.Array) -> jax.Array:
     The batch dims are arbitrary. Two trace-time strategies (both exact):
     entries unstacked to (batch,)-shaped scalars for n <= SCALAR_MAX_N,
     column-blocked right-looking Cholesky (O(n) unrolled steps over shrinking
-    (batch, n-j) column vectors) above that — for nv ~ 14-36 (ant, humanoid,
-    Adroit) this emits ~6n medium vector ops instead of ~n^3/3 tiny ones,
-    which is what the TPU's per-op overhead actually prices.
+    (batch, n-j) column vectors) above that, which emits ~6n medium vector
+    ops instead of ~n^3/3 tiny ones.
     """
     n = A.shape[-1]
     if n > MAX_UNROLL:

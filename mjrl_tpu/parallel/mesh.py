@@ -1,10 +1,10 @@
 """Device mesh + sharding layout for multi-chip / multi-host scale-out.
 
 The reference's only distribution mechanism is a single-host process pool
-(reference: mjrl/samplers/core.py ``_try_multiprocess``). The TPU-native
-equivalent (SURVEY.md §2.3/§5.8): ONE jitted SPMD program per iteration over
-a ``jax.sharding.Mesh`` whose axis ``"env"`` shards the environment batch
-across chips (ICI) and hosts (DCN). Parameters and optimizer state stay
+(reference: mjrl/samplers/core.py ``_try_multiprocess``). The equivalent
+here (SURVEY.md §2.3/§5.8): ONE jitted SPMD program per iteration over a
+``jax.sharding.Mesh`` whose axis ``"env"`` shards the environment batch
+across devices and hosts. Parameters and optimizer state stay
 replicated; XLA's partitioner emits the six reduction points (VPG-grad mean,
 per-CG-iteration FVP, KL/surrogate scalars, advantage mu/sigma, eval stats,
 score EMA) as ``all-reduce`` collectives automatically because every masked

@@ -1,7 +1,7 @@
 """Collision detection + penalty contact forces, batched by collider kind.
 
 Replaces the reference's reliance on MuJoCo's contact machinery (SURVEY.md
-§2.2) with a TPU-friendly formulation: the candidate pair list is STATIC
+§2.2) with a batch-friendly formulation: the candidate pair list is STATIC
 (from the model's contype/conaffinity filtering), pairs are GROUPED BY
 COLLIDER KIND at trace time (all capsule-vs-plane pairs evaluate as one
 batched computation, etc.), and non-penetrating pairs contribute zero force

@@ -1,29 +1,28 @@
-"""Batched physics dispatch: vmap'ed env steps ride the SoA/Pallas fast path.
+"""Batched physics dispatch: vmap'ed env steps ride the batch-last SoA path.
 
 The sampler's shape is ``lax.scan`` over time of ``jax.vmap(env.step)`` over
-envs (samplers/rollout.py). Under plain vmap the per-env engine keeps its
-tiny feature dims (3, 6, nv) in the TPU lane dimension and wastes ~95% of
-the VPU (see physics/soa.py). This module makes the batched case take the
-batch-LAST SoA pipeline instead — as a single Pallas mega-kernel per control
-step on TPU — without changing any env/sampler code structure:
+envs (samplers/rollout.py). Under plain vmap the per-env engine puts the env
+batch on the leading axis of tiny per-env tensors; ``physics/soa.py``
+re-expresses the same substep with the batch on the last axis. This module
+makes the batched case take the SoA pipeline without changing any
+env/sampler code structure:
 
 ``make_frame_stepper(model, frame_skip)`` returns a per-env function
-``(q, qd, ctrl) -> (q, qd)`` advancing ``frame_skip`` control frames. It is
-a ``jax.custom_batching.custom_vmap``: called unbatched it runs the
-reference per-env engine; under ``vmap`` its batching rule transposes to
-``(rows, B)`` and runs the whole ``frame_skip x n_substeps`` window in one
-SoA pass (Pallas kernel on TPU backends, plain jit elsewhere).
+``(q, qd, ctrl) -> (q, qd)`` advancing ``frame_skip`` control frames. For
+models that :func:`soa_eligible` accepts it is a
+``jax.custom_batching.custom_vmap``: called unbatched it runs the reference
+per-env engine; under ``vmap`` its batching rule transposes to ``(rows, B)``
+and runs the whole ``frame_skip x n_substeps`` window through
+``soa.multistep`` under plain jit.
 
-Models outside the SoA feature set (ball joints, tendons, box-box
-contacts — ``soa.soa_supported``) just return the per-env loop and vmap
-normally. Set ``MJRL_TPU_NO_SOA=1`` to force the fallback everywhere (A/B
-debugging).
+Every other model returns the per-env loop, which vmaps normally. Set
+``MJRL_TPU_NO_SOA=1`` to force that fallback everywhere (A/B debugging).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -35,9 +34,23 @@ from mjrl_tpu.physics.model import Model
 # Above this many substeps per window the SoA body is wrapped in fori_loop
 # instead of fully unrolled (compile-time / instruction-count bound).
 _UNROLL_MAX = 8
+# Models with more narrow-phase contact points than this trace one SoA body
+# per candidate, which compiles slowly and has no measured payoff over the
+# per-env engine; they stay on the per-env engine under vmap.
+_MAX_SOA_CANDIDATES = 64
 
 
-_num_candidates = soa.num_contact_candidates
+def soa_eligible(model: Model) -> bool:
+    """Whether a batched step of ``model`` runs through ``soa.multistep``.
+
+    False for models outside the SoA feature set, for models with tendons,
+    and for models with more than ``_MAX_SOA_CANDIDATES`` contact points.
+    """
+    return (
+        soa.soa_supported(model)
+        and model.tendon_Jq is None
+        and soa.num_contact_candidates(model) <= _MAX_SOA_CANDIDATES
+    )
 
 
 def make_frame_stepper(
@@ -52,7 +65,7 @@ def make_frame_stepper(
 
     ``with_link_delta=True`` adds a per-env ``(nlink, 3)`` parent-frame
     body-position offset argument (randomized scenes — Adroit); the SoA
-    side receives it as an extra ``(3*nlink, B)`` lane-tiled input.
+    side receives it as an extra ``(3*nlink, B)`` batch-last input.
     """
 
     def per_env(q, qd, ctrl, *delta):
@@ -66,17 +79,17 @@ def make_frame_stepper(
 
     if use_soa is None:
         use_soa = os.environ.get("MJRL_TPU_NO_SOA", "0") != "1"
-    if not (use_soa and soa.soa_supported(model)):
+    if not (use_soa and soa_eligible(model)):
         return per_env
 
     if model.constraint_solver == "newton":
         # solver parameters (invweight0 etc.) are trace-time numpy
-        # constants; materialize them eagerly before any Pallas trace
+        # constants; materialize them eagerly before the SoA trace
         from mjrl_tpu.physics.csolve import ensure_solver_params
 
         ensure_solver_params(model)
 
-    total_substeps = frame_skip * model.n_substeps
+    unroll = frame_skip * model.n_substeps <= _UNROLL_MAX
     nargs = 4 if with_link_delta else 3
 
     @jax.custom_batching.custom_vmap
@@ -92,40 +105,15 @@ def make_frame_stepper(
                     args[k], (axis_size,) + args[k].shape
                 )
         q, qd, ctrl = args[:3]
-        if jax.default_backend() != "tpu" and (
-            model.tendon_Jq is not None or _num_candidates(model) > 64
-        ):
-            # Candidate-heavy models (Adroit) on CPU/GPU test backends:
-            # the big SoA trace is an XLA:CPU compile sink with no lane
-            # payoff there — keep the per-env engine under plain vmap.
-            q2, qd2 = jax.vmap(per_env)(*args)
-            return (q2, qd2), (True, True)
         # batch-last link_delta: (B, nlink, 3) -> (3*nlink, B)
         delta_bl = None
         if with_link_delta:
             d = args[3]
             delta_bl = d.reshape(d.shape[0], -1).T
-        no_pallas = os.environ.get("MJRL_TPU_NO_PALLAS", "0") == "1"
-        if jax.default_backend() == "tpu" and not no_pallas:
-            from mjrl_tpu.physics.pkernel import multistep_pallas
-
-            q2, qd2 = multistep_pallas(
-                model, q.T, qd.T, ctrl.T, frame_skip, link_delta=delta_bl
-            )
-        else:
-            q2, qd2 = soa.multistep(
-                model,
-                q.T,
-                qd.T,
-                ctrl.T,
-                frame_skip,
-                # candidate-heavy models (Adroit: ~680 contact points) trace
-                # a large substep body; loop instead of unrolling to keep
-                # trace/compile time bounded
-                unroll=total_substeps <= _UNROLL_MAX
-                and _num_candidates(model) <= 64,
-                link_delta=delta_bl,
-            )
+        q2, qd2 = soa.multistep(
+            model, q.T, qd.T, ctrl.T, frame_skip, unroll=unroll,
+            link_delta=delta_bl,
+        )
         return (q2.T, qd2.T), (True, True)
 
     return frame_step

@@ -1,25 +1,19 @@
-"""Batch-last (structure-of-arrays) physics substep: the TPU fast path.
+"""Batch-last (structure-of-arrays) physics substep: the batched fast path.
 
-Why this exists: the per-env pipeline in ``physics/engine.py`` is written
-over tiny per-env tensors — ``cdof (nv, 6)``, ``M (nv, nv)`` — and ``vmap``
-puts the env batch on the LEADING axis, so every compiled op carries its
-feature dims (3, 6, 14, ...) in the TPU's lane dimension. Lanes are 128 wide:
-a (B, 13, 6) elementwise op lights up 6 of 128 lanes, i.e. ~5% of the VPU.
-Measured on a v5e chip the ant substep is per-element-throughput bound (flat
-env-steps/s from 1k to 16k envs), so the fix is lane utilization, not batch
-size.
-
-This module re-expresses the SAME pipeline (kinematics -> cdof/cvel ->
-CRB mass matrix -> RNE bias -> penalty contacts -> sparse LTDL solve ->
-semi-implicit Euler; see engine.py and SURVEY.md §2.2) with the env batch in
-the LAST (lane) axis: every per-env scalar is a ``(1, B)`` row, every 3-vector
-a ``(3, B)`` array. All loop structure (tree walks, dof chains, contact
-pairs) unrolls at trace time over the model's static tables, exactly like the
-engine; there is no dynamic indexing, gather, or scatter — only static
-slices, concatenates, elementwise ops and cross-sublane reductions — so the
-whole substep also runs INSIDE a Pallas kernel (physics/pkernel.py wraps it),
-where all intermediates live in VMEM/vregs and the full frame_skip x
-n_substeps control step is a single kernel launch.
+The per-env pipeline in ``physics/engine.py`` is written over tiny per-env
+tensors — ``cdof (nv, 6)``, ``M (nv, nv)`` — and ``vmap`` puts the env batch
+on the LEADING axis, so every compiled op carries small feature dims
+(3, 6, 14, ...) in its minor dimension. This module re-expresses the SAME
+pipeline (kinematics -> cdof/cvel -> CRB mass matrix -> RNE bias -> penalty
+contacts -> sparse LTDL solve -> semi-implicit Euler; see engine.py and
+SURVEY.md §2.2) with the env batch in the LAST axis: every per-env scalar is
+a ``(1, B)`` row, every 3-vector a ``(3, B)`` array. All loop structure
+(tree walks, dof chains, contact pairs) unrolls at trace time over the
+model's static tables, exactly like the engine; there is no dynamic
+indexing, gather, or scatter — only static slices, concatenates, elementwise
+ops and reductions over the leading axis. ``physics/dispatch.py`` routes
+batched env steps here; whether it beats the per-env engine under vmap on a
+given device is a measurement (PERF.md).
 
 Two deliberate algorithmic upgrades over the dense-masked-matmul engine
 (identical math, sparser schedule — both tree-exact, not approximations):
@@ -87,10 +81,8 @@ def soa_supported(model: Model) -> bool:
 
     Unsupported models (ball joints, link-mounted planes) fall back to the
     per-env engine under vmap. Fixed tendons and the box collider kinds are
-    supported since round 3 (they are what Adroit needs); tendon models take
-    the plain-XLA SoA path rather than the Pallas kernel (the tendon
-    coupling matrices are array constants, which ``pallas_call`` cannot
-    capture — see physics/dispatch.py).
+    covered (they are what Adroit needs); ``dispatch.soa_eligible`` decides
+    which covered models actually take this path.
     """
     for i in range(model.nlink):
         if model.link_jnt_type[i] not in (-1, FREE, HINGE, SLIDE):
@@ -110,20 +102,19 @@ def soa_supported(model: Model) -> bool:
 
 # ---------------------------------------------------------------------------
 # Row algebra: vectors are (3, B), quats (4, B), spatial vectors (6, B);
-# static model constants enter as (k, 1) and broadcast over lanes.
+# static model constants are materialized at full (k, B) width.
 # ---------------------------------------------------------------------------
 
 
-# Lane width of the batch being traced; set by substep(). Constants are
-# materialized at full width because (a) pallas_call rejects captured array
-# constvars, so they must be built from scalar literals inside the trace,
-# and (b) Mosaic can't broadcast (1,1)->(k,B) in one op (both sublanes and
-# lanes), so splatting to (1,B) rows keeps every later broadcast 1-D.
+# Batch width being traced; set by substep(). Constants are built from
+# scalar literals at full (k, B) width, so no array constant is captured by
+# the trace and every later broadcast is 1-D. Whether plain (k, 1)
+# broadcasting is faster under XLA is open (ROADMAP D2).
 _LANES: int = 1
 
 
 def _c(x) -> jax.Array:
-    """Static constant column splatted across lanes: shape (k, B) f32."""
+    """Static constant column splatted across the batch: shape (k, B) f32."""
     v = np.asarray(x, np.float32).reshape(-1)
     if v.size == 1:
         return jnp.full((1, _LANES), float(v[0]), jnp.float32)
@@ -133,7 +124,7 @@ def _c(x) -> jax.Array:
 
 
 def _z(k: int) -> jax.Array:
-    """Zero rows at lane width: shape (k, B) f32."""
+    """Zero rows at batch width: shape (k, B) f32."""
     return jnp.zeros((k, _LANES), jnp.float32)
 
 
@@ -568,8 +559,7 @@ def _contact_candidates(model: Model, pos, quat) -> List[_Cand]:
     def min_axis_onehot(gap):
         # one-hot of the per-column min over the 3 axis rows; first-axis
         # tie-break matches the engine's argmin. Float arithmetic instead
-        # of bool algebra: Mosaic rejects vector-i1 bitcasts (&, ~, astype
-        # on vector bools), while compare-feeding-where lowers fine.
+        # of bool algebra (&, ~, astype on vector bools).
         g0, g1, g2 = gap[0:1], gap[1:2], gap[2:3]
         w = lambda c: jnp.where(c, np.float32(1.0), np.float32(0.0))
         o0 = w(g0 <= g1) * w(g0 <= g2)
@@ -889,9 +879,7 @@ def _applied_forces(model: Model, tab: _SoATables, q, qd, ctrl,
 def tendon_params(model: Model):
     """The tendon constants as ARRAYS ``(Jq (nt,nq), Jv (nt,nv), P (8,nt))``.
 
-    Packed so the Pallas kernel can take them as ordinary inputs
-    (``pallas_call`` cannot capture array constvars). ``P`` rows:
-    stiffness, springlength, damping, range_lo, range_hi,
+    ``P`` rows: stiffness, springlength, damping, range_lo, range_hi,
     limit_stiffness, limit_damping, limited.
     """
     nt = np.asarray(model.tendon_Jq).shape[0]
@@ -920,20 +908,15 @@ def tendon_params(model: Model):
     )
 
 
-def _tendon_forces(model: Model, q, qd, tendon=None):
+def _tendon_forces(model: Model, q, qd):
     """Fixed-tendon passive forces, batch-last: ``(nv, B)``.
 
     Twin of engine.tendon_forces (engine.py:588): tendon length ``l = Jq q``
     is LINEAR in the joint coordinates for fixed tendons, so the whole thing
     is two small dense matmuls either side of elementwise spring/damper +
-    limit-penalty math — MXU-friendly at any lane width. ``tendon`` is the
-    :func:`tendon_params` triple; inside the Pallas kernel it arrives as
-    kernel inputs (array constvars are not capturable there), outside it
-    defaults to trace-time constants.
+    limit-penalty math, with the :func:`tendon_params` constants.
     """
-    if tendon is None:
-        tendon = tendon_params(model)
-    Jq, Jv, P = (jnp.asarray(t) for t in tendon)
+    Jq, Jv, P = (jnp.asarray(t) for t in tendon_params(model))
     length = Jq @ q  # (nt, B)
     vel = Jv @ qd
     col = lambda i: P[i][:, None]
@@ -1011,11 +994,11 @@ def _integrate(model: Model, q, qd, qdd, dt: float):
 
 
 def substep(model: Model, q: jax.Array, qd: jax.Array, ctrl: jax.Array, dt: float,
-            tendon=None, link_delta=None):
+            link_delta=None):
     """One physics substep, batch-last: q (nq, B), qd (nv, B), ctrl (nu, B).
 
     Same pipeline as engine.step's inner substep (kinematics -> contacts ->
-    forward dynamics -> integrate), reorganized for lane-major execution.
+    forward dynamics -> integrate), reorganized with the batch last.
     """
     global _LANES
     prev_lanes = _LANES
@@ -1050,7 +1033,7 @@ def substep(model: Model, q: jax.Array, qd: jax.Array, ctrl: jax.Array, dt: floa
             # always the FULL tendon force (incl. the limit penalty), both
             # modes — the engine adds tendon_forces unconditionally
             # (engine.py:740) and csolve keeps tendon limits as penalties
-            tau = tau + _tendon_forces(model, q, qd, tendon)
+            tau = tau + _tendon_forces(model, q, qd)
         damping = _c(model.dof_damping)
         rhs = tau - C - damping * qd
         from mjrl_tpu.physics.engine import friction_terms
@@ -1095,26 +1078,23 @@ def multistep(
     ctrl: jax.Array,
     n_frames: int = 1,
     unroll: bool = True,
-    tendon=None,
     link_delta=None,
 ):
     """``n_frames`` control frames = n_frames * model.n_substeps substeps.
 
-    ``unroll=False`` wraps the substep in ``lax.fori_loop`` (used inside the
-    Pallas kernel to bound instruction count / compile time). ``tendon``
-    (see :func:`tendon_params`) forwards kernel-input tendon constants;
-    ``link_delta`` is the per-env scene-randomization offset (see
-    :func:`_fk`).
+    ``unroll=False`` wraps the substep in ``lax.fori_loop`` to bound trace
+    size and compile time. ``link_delta`` is the per-env
+    scene-randomization offset (see :func:`_fk`).
     """
     dt = model.dt / model.n_substeps
     n_total = n_frames * model.n_substeps
     if unroll:
         for _ in range(n_total):
-            q, qd = substep(model, q, qd, ctrl, dt, tendon, link_delta)
+            q, qd = substep(model, q, qd, ctrl, dt, link_delta)
         return q, qd
 
     def body(_, carry):
         q, qd = carry
-        return substep(model, q, qd, ctrl, dt, tendon, link_delta)
+        return substep(model, q, qd, ctrl, dt, link_delta)
 
     return jax.lax.fori_loop(0, n_total, body, (q, qd))

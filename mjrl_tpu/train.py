@@ -18,13 +18,15 @@ from mjrl_tpu.utils.configs import (
     policy_warm_start,
     warm_start,
 )
+from mjrl_tpu.utils.runtime import enable_compile_cache
 from mjrl_tpu.utils.train_agent import train_agent
 
 
-def run_job(cfg: RunConfig, output: str) -> None:
+def run_job(cfg: RunConfig, output: str, max_retries: int = 3):
     """Build env/policy/baseline/agent from a config and train into
-    ``output``. Reentrant: safe to call several times in one process (the
-    TPU-queue runner uses this so a job sequence claims the chip ONCE)."""
+    ``output``; returns the final agent state. Reentrant: safe to call
+    several times in one process. ``max_retries`` is passed to
+    ``train_agent`` (0 makes a device error fail the run at once)."""
     cfg.to_json(os.path.join(output, "config.json"))
     _, policy, _, agent = build(cfg)
     init_state = None
@@ -46,7 +48,7 @@ def run_job(cfg: RunConfig, output: str) -> None:
             ),
             jax.random.fold_in(jax.random.PRNGKey(cfg.seed), 2),
         )
-    train_agent(
+    return train_agent(
         output,
         agent,
         seed=cfg.seed,
@@ -55,6 +57,7 @@ def run_job(cfg: RunConfig, output: str) -> None:
         evaluation_rollouts=cfg.evaluation_rollouts,
         plot_keys=cfg.plot_keys,
         init_state=init_state,
+        max_retries=max_retries,
     )
 
 
@@ -99,6 +102,7 @@ def main() -> None:
         help="config overrides, JSON-parsed values (e.g. niter=50)",
     )
     args = p.parse_args()
+    enable_compile_cache()
     run_job(load_config(args.config, args.set), args.output)
 
 

@@ -2,7 +2,7 @@
 
 The reference passes data between layers as variable-length "path" dicts
 (``{observations (T,do), actions (T,da), rewards (T,), agent_infos, ...}``,
-reference: mjrl/samplers/core.py + mjrl/utils/process_samples.py). On TPU a
+reference: mjrl/samplers/core.py + mjrl/utils/process_samples.py). A
 variable-length list of dicts cannot live under ``jit``; the equivalent wire
 format here is a fixed-shape, mask-padded batch of trajectories
 (``TrajectoryBatch``) laid out env-major ``(num_envs, horizon, ...)`` so the

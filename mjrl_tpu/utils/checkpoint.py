@@ -1,49 +1,101 @@
-"""Checkpoint/resume via orbax: the full train state, atomically.
+"""Checkpoint/resume: the full train state as one ``.npz`` per step, atomically.
 
 The reference checkpoints by pickling whole Python objects
 (``best_policy.pickle``, ``policy_{i}.pickle``/``baseline_{i}.pickle`` every
 ``save_freq`` iterations; resume scans ``iterations/`` for the newest pair —
 reference: mjrl/utils/train_agent.py) and silently loses optimizer state on
 resume. Here the ENTIRE ``AgentState`` pytree (policy params + old params +
-transforms + baseline + optimizer state + iteration + running_score) is one
-orbax checkpoint: atomic, multi-host-aware, resume-exact (SURVEY.md §5.4).
-A ``best`` checkpoint mirrors the reference's ``best_policy.pickle``.
+transforms + baseline + optimizer state + iteration + running_score) is
+saved: resume-exact (SURVEY.md §5.4). A ``best`` checkpoint mirrors the
+reference's ``best_policy.pickle``.
+
+Layout under the job directory: ``iterations/<step>/state.npz`` and
+``best/state.npz``. The leaves are stored in ``jax.tree_util`` flatten order;
+restoring needs a template pytree of the same structure (a fresh
+``agent.init`` state), so no Python object is ever unpickled. Each write goes
+to a temporary directory first and is moved into place with ``os.replace``,
+so a crash mid-save never leaves a partial checkpoint under its final name.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Optional
+import shutil
+import tempfile
+from typing import Any, List, Optional
 
 import jax
-import orbax.checkpoint as ocp
+import numpy as np
+
+_FILE = "state.npz"
+
+
+def _write(path: str, state: Any) -> None:
+    leaves = jax.tree_util.tree_leaves(jax.device_get(state))
+    parent = os.path.dirname(path)
+    tmp = tempfile.mkdtemp(prefix=".tmp-", dir=parent)
+    try:
+        np.savez(
+            os.path.join(tmp, _FILE),
+            **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)},
+        )
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def _read(path: str, template: Any) -> Any:
+    leaves, treedef = jax.tree_util.tree_flatten(template)
+    with np.load(os.path.join(path, _FILE)) as data:
+        if len(data.files) != len(leaves):
+            raise ValueError(
+                f"checkpoint {path} holds {len(data.files)} leaves, "
+                f"template has {len(leaves)}"
+            )
+        out = []
+        for i, ref in enumerate(leaves):
+            x = data[f"leaf_{i}"]
+            if np.shape(ref) != x.shape:
+                raise ValueError(
+                    f"checkpoint {path} leaf {i}: shape {x.shape}, "
+                    f"template {np.shape(ref)}"
+                )
+            out.append(x.astype(np.asarray(ref).dtype, copy=False))
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 5):
         self._dir = os.path.abspath(directory)
-        os.makedirs(self._dir, exist_ok=True)
-        self._mngr = ocp.CheckpointManager(
-            os.path.join(self._dir, "iterations"),
-            options=ocp.CheckpointManagerOptions(
-                max_to_keep=max_to_keep, create=True
-            ),
+        self._iters = os.path.join(self._dir, "iterations")
+        os.makedirs(self._iters, exist_ok=True)
+        self._max_to_keep = max_to_keep
+
+    def _steps(self) -> List[int]:
+        return sorted(
+            int(d)
+            for d in os.listdir(self._iters)
+            if d.isdigit() and os.path.isfile(os.path.join(self._iters, d, _FILE))
         )
-        self._best = ocp.PyTreeCheckpointer()
 
     def save(self, step: int, state: Any) -> None:
-        self._mngr.save(step, args=ocp.args.StandardSave(state))
+        _write(os.path.join(self._iters, str(step)), state)
+        for old in self._steps()[: -self._max_to_keep]:
+            shutil.rmtree(os.path.join(self._iters, str(old)))
 
     def save_best(self, state: Any) -> None:
         """The reference's ``best_policy.pickle`` equivalent."""
-        path = os.path.join(self._dir, "best")
-        self._best.save(path, jax.device_get(state), force=True)
+        _write(os.path.join(self._dir, "best"), state)
 
     def latest_step(self) -> Optional[int]:
-        return self._mngr.latest_step()
+        steps = self._steps()
+        return steps[-1] if steps else None
 
     def restore(self, step: int, template: Any) -> Any:
-        return self._mngr.restore(step, args=ocp.args.StandardRestore(template))
+        return _read(os.path.join(self._iters, str(step)), template)
 
     def restore_latest(self, template: Any) -> Optional[Any]:
         step = self.latest_step()
@@ -52,11 +104,10 @@ class CheckpointManager:
         return self.restore(step, template)
 
     def restore_best(self, template: Any) -> Any:
-        return self._best.restore(os.path.join(self._dir, "best"), item=template)
+        return _read(os.path.join(self._dir, "best"), template)
 
     def wait(self) -> None:
-        self._mngr.wait_until_finished()
+        """Saves are synchronous; kept so callers need not know that."""
 
     def close(self) -> None:
-        self._mngr.wait_until_finished()
-        self._mngr.close()
+        """Nothing is held open between saves."""

@@ -86,7 +86,8 @@ class RunConfig:
     # needed for wide-magnitude observation stacks like humanoid's 376-dim
     # cinert/cvel features, where raw-obs MLPs barely train)
     obs_norm: bool = False
-    # parallelism: shard the env axis over this many devices (0 = single)
+    # parallelism: shard the env axis over a mesh of this many devices
+    # (0 = no mesh)
     mesh_devices: int = 0
     # harness
     save_freq: int = 10
@@ -119,7 +120,7 @@ class RunConfig:
 def build(cfg: RunConfig):
     """Construct (env, policy, baseline, agent) from a config."""
     mesh = None
-    if cfg.mesh_devices and cfg.mesh_devices > 1:
+    if cfg.mesh_devices:
         from mjrl_tpu.parallel import make_mesh
 
         mesh = make_mesh(cfg.mesh_devices)

@@ -6,10 +6,10 @@ visualize_policy in mjrl/utils/gym_env.py).
 the per-episode discounted score plus optional percentiles. It is one jitted
 on-device computation.
 
-``export_rollout`` replaces interactive visualization (no display on a TPU
-host): it dumps qpos/action/reward trajectories to ``.npz``; for the
-locomotion envs these replay directly in any MuJoCo viewer against the same
-gymnasium asset the env was compiled from.
+``export_rollout`` replaces interactive visualization (no display on an
+accelerator host): it dumps qpos/action/reward trajectories to ``.npz``; for
+the locomotion envs these replay directly in any MuJoCo viewer against the
+same Gymnasium asset the env was compiled from.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Training-curve plots (reference: mjrl/utils/make_train_plots.py).
 
 Renders ``train_curves.png`` from logged keys with matplotlib's Agg backend.
+matplotlib is optional: without it the plot is skipped with one printed line.
 """
 
 from __future__ import annotations
@@ -8,12 +9,7 @@ from __future__ import annotations
 import os
 from typing import Optional, Sequence
 
-import matplotlib
-
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
-
-from mjrl_tpu.utils.logger import DataLog  # noqa: E402
+from mjrl_tpu.utils.logger import DataLog
 
 
 def make_train_plots(
@@ -33,6 +29,13 @@ def make_train_plots(
     keys = [k for k in keys if k in data and data[k]]
     if not keys:
         return
+    try:
+        import matplotlib
+    except ImportError:
+        print("matplotlib not installed; skipping train_curves.png")
+        return
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
     ncols = min(2, len(keys))
     nrows = -(-len(keys) // ncols)
     fig, axes = plt.subplots(

@@ -6,8 +6,6 @@ value-compared (penalty contacts vs MuJoCo's constraint solver — same
 rationale as tests/test_physics_mujoco.py), only shape/zero-row checked.
 """
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,17 +13,14 @@ import pytest
 
 mujoco = pytest.importorskip("mujoco")
 
-import gymnasium
-
+from mjrl_tpu.envs.locomotion import _asset_path
 from mjrl_tpu.physics import PhysicsState
 from mjrl_tpu.physics import math3d as m3
 from mjrl_tpu.physics.comfeat import body_links, com_features
 from mjrl_tpu.physics.engine import compute_kinematics
 from mjrl_tpu.physics.mjcf import load_mjcf
 
-ASSET = os.path.join(
-    os.path.dirname(gymnasium.__file__), "envs", "mujoco", "assets", "humanoid.xml"
-)
+ASSET = _asset_path("humanoid.xml")
 
 
 def _matched_state(mm, md, model, seed):

@@ -17,14 +17,11 @@ import mujoco
 import numpy as np
 import pytest
 
-import gymnasium.envs.mujoco as _gm
-
+from mjrl_tpu.envs.locomotion import _ASSETS as ASSETS
 from mjrl_tpu.physics import csolve
 from mjrl_tpu.physics import math3d as m3
 from mjrl_tpu.physics.bridge import model_from_mujoco
 from mjrl_tpu.physics.engine import PhysicsState, step as engine_step
-
-ASSETS = os.path.join(os.path.dirname(_gm.__file__), "assets")
 
 BALL_XML = """
 <mujoco><option timestep="0.002"/>

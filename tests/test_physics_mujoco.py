@@ -1,6 +1,7 @@
 """Per-state parity vs CPU MuJoCo 3.x ground truth (SURVEY.md §4b).
 
-The same gymnasium MJCF assets are compiled by BOTH our loader and MuJoCo;
+The same Gymnasium MJCF assets (vendored under ``mjrl_tpu/envs/assets``) are
+compiled by BOTH our loader and MuJoCo;
 at random states we compare, to float tolerance:
 
 - model compilation: sizes, masses, coms, principal inertias, qpos0,
@@ -37,15 +38,7 @@ from mjrl_tpu.physics.engine import (
 )
 from mjrl_tpu.physics.mjcf import load_mjcf
 
-ASSETS = os.path.join(
-    os.path.dirname(mujoco.__file__), "..", "gymnasium", "envs", "mujoco", "assets"
-)
-if not os.path.isdir(ASSETS):
-    import gymnasium
-
-    ASSETS = os.path.join(
-        os.path.dirname(gymnasium.__file__), "envs", "mujoco", "assets"
-    )
+from mjrl_tpu.envs.locomotion import _ASSETS as ASSETS  # noqa: E402
 
 PLANAR = ["hopper.xml", "walker2d.xml", "half_cheetah.xml"]
 

@@ -1,6 +1,6 @@
 """Parity: batch-last SoA substep (physics/soa.py) vs the per-env engine.
 
-The SoA path is the TPU throughput engine; its contract is bit-for-bit-ish
+The SoA path is the batched fast path; its contract is bit-for-bit-ish
 (f32 reassociation only) agreement with engine.step on every supported
 model. States are drawn from env resets plus a short warm rollout through
 the reference engine so that contact branches are exercised.

@@ -6,9 +6,8 @@ adroit dynamics is an XLA:CPU compile sink, so these tests compare the
 GEOMETRY pass only — SoA ``_contact_candidates`` vs the engine's
 ``_collide_kind`` at identical FK poses — plus the tendon generalized
 force, which is closed-form. The full-dynamics parity of the same code ran
-on TPU (engine-vs-SoA max|dq| 1.5e-8 on adroit_hammer and adroit_pen, see
-round-3 notes); the Pallas kernel is bitwise-equal to plain SoA by
-construction (tests via interpret elsewhere).
+on an accelerator (engine-vs-SoA max|dq| 1.5e-8 on adroit_hammer and
+adroit_pen, see round-3 notes).
 """
 
 import jax
@@ -131,9 +130,3 @@ def test_tendon_forces_match_engine(hammer_env):
     got = soa._tendon_forces(model, q.T, qd.T).T
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-4,
                                atol=1e-5)
-    # and the packed-params path (what the Pallas kernel consumes) agrees
-    got2 = soa._tendon_forces(
-        model, q.T, qd.T, tendon=soa.tendon_params(model)
-    ).T
-    np.testing.assert_allclose(np.asarray(got2), np.asarray(got), rtol=0,
-                               atol=0)

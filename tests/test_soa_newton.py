@@ -3,7 +3,7 @@ per-env engine's csolve path, per substep.
 
 csolve.py is the calibrated oracle (itself tested against mujoco 3.10's
 efc arrays in tests/test_csolve.py); this suite pins the SoA re-expression
-to it so Newton-contact training runs ride the TPU fast path with the same
+to it so Newton-contact training runs ride the batched fast path with the same
 physics the engine path certifies.
 
 Fixtures stay small (B=4-8, single substep) because the engine-side vmap of
@@ -82,9 +82,10 @@ def test_soa_newton_matches_engine_golden_ant():
     The live engine-side reference (vmap of the per-env Newton solve) is a
     ~1h XLA:CPU compile for ant, so the flagship env's parity case would
     otherwise live behind the slow gate only. tools/gen_newton_golden.py
-    runs that engine side once (the TPU compiles it in under a minute) and
-    stores inputs + outputs; here only the cheap SoA side compiles.
-    Tolerances carry a cross-backend allowance (golden may come from TPU).
+    runs that engine side once (an accelerator compiles it in about a
+    minute) and stores inputs + outputs; here only the cheap SoA side
+    compiles. Tolerances carry a cross-backend allowance (the golden was
+    generated on an accelerator, not on the CPU).
     """
     path = os.path.join(
         os.path.dirname(__file__), "golden", "ant_newton_substep.npz"
@@ -146,7 +147,7 @@ def test_soa_newton_matches_engine_golden_adroit(task):
     """Adroit-on-newton SoA-row parity against the precomputed engine
     oracle (closes PARITY known-gap #2's "untested" caveat: dense contact
     candidates + fixed tendons + per-env scene offsets through the Newton
-    row assembly). Engine side generated once on TPU by
+    row assembly). Engine side generated once on an accelerator by
     tools/gen_newton_golden.py; the SoA side compiles here on a model
     pruned to the candidates active at the golden states (an exact-parity
     transformation — see _prune_to_active_pairs), which is what makes this
@@ -181,8 +182,7 @@ def test_soa_newton_matches_engine_golden_adroit(task):
             jax.numpy.asarray(g["qd"].T),
             jax.numpy.asarray(g["ctrl"].T),
             float(g["dt"]),
-            None,
-            delta_bl,
+            link_delta=delta_bl,
         )
     np.testing.assert_allclose(
         np.asarray(got_q).T, g["ref_q"], rtol=3e-4, atol=3e-5

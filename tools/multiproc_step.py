@@ -4,7 +4,7 @@
 This exercises the multi-host software path (process-group formation, global
 device mesh spanning processes, GSPMD collectives across process boundaries)
 that single-process virtual-device tests cannot reach — SURVEY.md §5.8's
-first-class component, minus the TPU pod hardware (reference equivalent:
+first-class component, minus multi-host hardware (reference equivalent:
 the process pool in mjrl/samplers/core.py was the reference's only
 multi-worker mechanism).
 
@@ -71,11 +71,9 @@ def main() -> None:
 
     # persistent compile cache: the flagship ant program is XLA:CPU
     # compile-heavy; cache entries are shared with the test suite's
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "tests", ".jax_cache"),
-    )
+    from mjrl_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     from mjrl_tpu import envs
     from mjrl_tpu.algos import NPG

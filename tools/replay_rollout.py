@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """Replay an ``export_rollout`` .npz in MuJoCo — the reference's
 ``visualize_policy`` capability (reference: mjrl/utils/gym_env.py
-``visualize_policy``) restored for a TPU-trained policy.
+``visualize_policy``) restored for a policy trained on device.
 
 ``mjrl_tpu.utils.evaluation.export_rollout`` saves the raw qpos trajectory;
-since the locomotion envs are compiled from the gymnasium MuJoCo assets,
+since the locomotion envs are compiled from the vendored Gymnasium MuJoCo assets,
 those same XMLs replay the trajectory bit-for-bit as a kinematic animation:
 
     python tools/replay_rollout.py rollout.npz --env hopper --view
@@ -44,15 +44,9 @@ def _resolve_xml(args) -> str:
         sys.exit("need --env <name> or --xml <path>")
     name = args.env
     if name in _ASSETS:
-        import gymnasium
+        from mjrl_tpu.envs.locomotion import _asset_path
 
-        return os.path.join(
-            os.path.dirname(gymnasium.__file__),
-            "envs",
-            "mujoco",
-            "assets",
-            _ASSETS[name],
-        )
+        return _asset_path(_ASSETS[name])
     if name.startswith("adroit_"):
         try:
             import gymnasium_robotics
